@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Generate API documentation for warpsense_tpu (stdlib pydoc, no deps).
+"""Generate API documentation for warpsense (stdlib pydoc, no deps).
 
 The reference ships a Doxygen target (`catkin_make docs`,
 /root/reference/docs/CMakeLists.txt:1-8 + docs/Doxyfile); this is that
@@ -21,12 +21,12 @@ def main() -> None:
     sys.path.insert(0, str(ROOT))
     import jax
     jax.config.update("jax_platforms", "cpu")   # never touch hardware
-    import warpsense_tpu
+    import warpsense
 
     OUT.mkdir(parents=True, exist_ok=True)
-    names = ["warpsense_tpu"]
-    for m in pkgutil.walk_packages(warpsense_tpu.__path__,
-                                   prefix="warpsense_tpu."):
+    names = ["warpsense"]
+    for m in pkgutil.walk_packages(warpsense.__path__,
+                                   prefix="warpsense."):
         names.append(m.name)
 
     written = []
@@ -42,8 +42,8 @@ def main() -> None:
         except Exception as e:       # modules with optional deps
             print(f"skip {name}: {e}", file=sys.stderr)
 
-    index = ["<html><head><title>warpsense_tpu API</title></head><body>",
-             "<h1>warpsense_tpu API documentation</h1>",
+    index = ["<html><head><title>warpsense API</title></head><body>",
+             "<h1>warpsense API documentation</h1>",
              "<p>Generated by docs/build.py (stdlib pydoc).</p><ul>"]
     for name in written:
         index.append(f'<li><a href="{name}.html">{name}</a></li>')

@@ -16,11 +16,11 @@ jax.distributed.initialize(coordinator_address=f"127.0.0.1:{port}",
 
 import numpy as np  # noqa: E402
 
-from warpsense_tpu.core.config import Params  # noqa: E402
-from warpsense_tpu.io.synthetic import (BoxWorld, render_scan,  # noqa: E402
-                                        walk_trajectory)
-from warpsense_tpu.parallel.distributed import global_mesh  # noqa: E402
-from warpsense_tpu.pipeline.warpsense_sharded import \
+from warpsense.core.config import Params  # noqa: E402
+from warpsense.io.synthetic import (BoxWorld, render_scan,  # noqa: E402
+                                    walk_trajectory)
+from warpsense.parallel.distributed import global_mesh  # noqa: E402
+from warpsense.pipeline.warpsense_sharded import \
     ShardedWarpsenseApp  # noqa: E402
 
 params = Params.from_dict({
@@ -32,7 +32,7 @@ params = Params.from_dict({
     "lidar": {"channels": 32, "hresolution": 512},
 })
 mesh = global_mesh()
-app = ShardedWarpsenseApp(params, mesh=mesh, map_path=f"{outdir}/mh.h5",
+app = ShardedWarpsenseApp(params, mesh=mesh, map_path=f"{outdir}/mh",
                           capacity=8192, window_size=(160, 101, 41))
 poses = walk_trajectory(6, step_m=0.1)
 world = BoxWorld.default()

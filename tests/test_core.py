@@ -6,9 +6,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from warpsense_tpu.core import geometry as geo
-from warpsense_tpu.core.config import Params, MapParams
-from warpsense_tpu.core.consts import MATRIX_RESOLUTION, WEIGHT_RESOLUTION
+from warpsense.core import geometry as geo
+from warpsense.core.config import Params, MapParams
+from warpsense.core.consts import MATRIX_RESOLUTION, WEIGHT_RESOLUTION
 
 
 def test_to_int_mat_identity():
@@ -102,13 +102,17 @@ def test_params_from_dict_defaults():
 
 
 def test_params_yaml_layering(tmp_path):
-    base = tmp_path / "base.yaml"
-    base.write_text(
-        "map:\n  resolution: 64\n  max_distance: 1.0\n  size:\n    x: 40\n    y: 40\n    z: 25\n"
-        "floam:\n  enrich: 4\n")
-    override = tmp_path / "dataset.yaml"
-    override.write_text("map:\n  size:\n    z: 15\nfloam:\n  enrich: 7\n")
-    p = Params.from_yaml(base, override)
+    import json
+    base = tmp_path / "base.json"
+    base.write_text(json.dumps({
+        "map": {"resolution": 64, "max_distance": 1.0,
+                "size": {"x": 40, "y": 40, "z": 25}},
+        "floam": {"enrich": 4}}))
+    override = tmp_path / "dataset.json"
+    override.write_text(json.dumps({"_comment": "dataset override",
+                                    "map": {"size": {"z": 15}},
+                                    "floam": {"enrich": 7}}))
+    p = Params.from_files(base, override)
     assert p.map.size_voxels == (625, 625, 234)
     assert p.floam.enrich == 7
     assert p.map.tau == 1000
@@ -123,7 +127,7 @@ def test_identifier_format():
 
 
 def test_params_presets_layering():
-    from warpsense_tpu.core.config import Params
+    from warpsense.core.config import Params
 
     base = Params.preset()
     assert base.lidar.channels == 128
@@ -145,7 +149,7 @@ def test_params_presets_layering():
 
 
 def test_csv_wrapper(tmp_path):
-    from warpsense_tpu.obs.csv_wrapper import CSVWrapper
+    from warpsense.obs.csv_wrapper import CSVWrapper
 
     c = CSVWrapper(tmp_path / "t.csv")
     c.add_row(a=1, b="x")
@@ -202,3 +206,32 @@ def test_reference_pose_composition_drifts_on_turns():
     # documented turn instability, README.md:301)
     assert 0.08 < err_ref < 0.15, \
         f"reference-composition offset {err_ref:.3f} m"
+
+
+@pytest.mark.parametrize("env_dir", [None, "given"])
+def test_compile_cache_location(monkeypatch, tmp_path, env_dir):
+    """JAX_COMPILATION_CACHE_DIR, when set, is the only cache directory
+    (the helper sets nothing); otherwise the cache goes to the fixed path
+    <checkout>/.jax_cache."""
+    from pathlib import Path
+
+    import jax
+
+    from warpsense.utils import compile_cache
+
+    before = jax.config.jax_compilation_cache_dir
+    if env_dir:
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+    else:
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    try:
+        got = compile_cache.enable_compile_cache()
+        if env_dir:
+            assert got == str(tmp_path)
+            assert jax.config.jax_compilation_cache_dir == before
+        else:
+            root = Path(__file__).resolve().parent.parent
+            assert got == str(root / ".jax_cache")
+            assert jax.config.jax_compilation_cache_dir == got
+    finally:
+        jax.config.update("jax_compilation_cache_dir", before)

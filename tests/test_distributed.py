@@ -13,13 +13,13 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from warpsense_tpu.map.local_map import LocalMapState
-from warpsense_tpu.parallel.distributed import (gather_state, global_mesh,
-                                                host_slab_bounds,
-                                                init_distributed,
-                                                shard_state_global)
-from warpsense_tpu.parallel.sharded import tsdf_update_projective_sharded
-from warpsense_tpu.core.consts import WEIGHT_RESOLUTION
+from warpsense.map.local_map import LocalMapState
+from warpsense.parallel.distributed import (gather_state, global_mesh,
+                                            host_slab_bounds,
+                                            init_distributed,
+                                            shard_state_global)
+from warpsense.parallel.sharded import tsdf_update_projective_sharded
+from warpsense.core.consts import WEIGHT_RESOLUTION
 
 SIZE = (80, 41, 41)
 
@@ -71,7 +71,7 @@ def test_two_process_distributed_matches_single(tmp_path):
     port = s.getsockname()[1]
     s.close()
     out_npz = tmp_path / "p0.npz"
-    cmd = [sys.executable, "-m", "warpsense_tpu.parallel.distributed",
+    cmd = [sys.executable, "-m", "warpsense.parallel.distributed",
            "--coordinator", f"127.0.0.1:{port}", "--num-processes", "2",
            "--cpu", "2", "--out", str(out_npz)]
     procs = [subprocess.Popen(cmd + ["--process-id", str(i)],
@@ -96,10 +96,10 @@ def test_two_process_distributed_matches_single(tmp_path):
 
     # equals the single-process result (this runtime's 8-device mesh is
     # a different shard count — shard invariance is part of the claim)
-    from warpsense_tpu.core.consts import WEIGHT_RESOLUTION
-    from warpsense_tpu.map.local_map import create_state
-    from warpsense_tpu.parallel.distributed import _demo_cloud
-    from warpsense_tpu.parallel.sharded import (
+    from warpsense.core.consts import WEIGHT_RESOLUTION
+    from warpsense.map.local_map import create_state
+    from warpsense.parallel.distributed import _demo_cloud
+    from warpsense.parallel.sharded import (
         make_mesh, precompute_fields_packed_sharded,
         register_cloud_packed_sharded, shard_state,
         tsdf_update_projective_sharded)
@@ -157,11 +157,11 @@ def test_two_process_sharded_app(tmp_path):
     np.testing.assert_array_equal(t0, t1)
 
     # single-process 4-device twin on the same scans
-    from warpsense_tpu.core.config import Params
-    from warpsense_tpu.io.synthetic import (BoxWorld, render_scan,
-                                            walk_trajectory)
-    from warpsense_tpu.parallel.sharded import make_mesh
-    from warpsense_tpu.pipeline.warpsense_sharded import ShardedWarpsenseApp
+    from warpsense.core.config import Params
+    from warpsense.io.synthetic import (BoxWorld, render_scan,
+                                        walk_trajectory)
+    from warpsense.parallel.sharded import make_mesh
+    from warpsense.pipeline.warpsense_sharded import ShardedWarpsenseApp
 
     params = Params.from_dict({
         "map": {"max_distance": 0.6, "resolution": 128, "max_weight": 10,
@@ -174,7 +174,7 @@ def test_two_process_sharded_app(tmp_path):
     # sync_shift: the workers shift synchronously at a fixed scan index;
     # the single-process twin must swap at the same scan to be comparable
     app = ShardedWarpsenseApp(params, mesh=make_mesh(4),
-                              map_path=tmp_path / "single.h5",
+                              map_path=tmp_path / "single",
                               capacity=8192, window_size=(160, 101, 41),
                               sync_shift=True)
     poses = walk_trajectory(6, step_m=0.1)
@@ -190,10 +190,10 @@ def test_two_process_sharded_app(tmp_path):
     np.testing.assert_allclose(t0[:, :3, 3], ts[:, :3, 3], atol=5.0)
 
     # per-process files union == single-process map (weight-nonzero wins)
-    from warpsense_tpu.map.global_map import GlobalMap
+    from warpsense.map.global_map import GlobalMap
     area = (np.asarray([-20, -50, -20]), np.asarray([80, 50, 20]))
     raws = []
-    for path in ("mh.p0.h5", "mh.p1.h5", "single.h5"):
+    for path in ("mh.p0", "mh.p1", "single"):
         gm = GlobalMap(tmp_path / path, 600, 0, truncate=False)
         raws.append(gm.read_area(*area))
         gm.close()
@@ -208,11 +208,11 @@ def test_two_process_sharded_app(tmp_path):
     assert agree > 0.99, f"map agreement {agree:.4f}"
 
     # the merge_maps tool produces the same union as a single file
-    from warpsense_tpu.eval.merge_maps import merge
-    stats = merge([tmp_path / "mh.p0.h5", tmp_path / "mh.p1.h5"],
-                  tmp_path / "merged.h5")
+    from warpsense.eval.merge_maps import merge
+    stats = merge([tmp_path / "mh.p0", tmp_path / "mh.p1"],
+                  tmp_path / "merged")
     assert stats["poses"] == 6
-    gm = GlobalMap(tmp_path / "merged.h5", 600, 0, truncate=False)
+    gm = GlobalMap(tmp_path / "merged", 600, 0, truncate=False)
     rm = gm.read_area(*area)
     gm.close()
     np.testing.assert_array_equal(rm, merged)

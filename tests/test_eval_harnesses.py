@@ -4,7 +4,7 @@ import json
 import numpy as np
 import pytest
 
-from warpsense_tpu.eval import pcd2tsdf, pcd_registration
+from warpsense.eval import pcd2tsdf, pcd_registration
 
 
 def _small_cloud(res=256, half=3000, n_per_wall=300, seed=0):
@@ -44,11 +44,11 @@ def test_pcd_registration_recovers_perturbations():
 
 
 def test_slam_eval_cli_smoke(tmp_path, capsys):
-    from warpsense_tpu.eval import slam_eval
+    from warpsense.eval import slam_eval
 
     slam_eval.main(["--pipeline", "warpsense", "--frames", "4",
                     "--channels", "16", "--columns", "256",
-                    "--map-out", str(tmp_path / "m.h5")])
+                    "--map-out", str(tmp_path / "m")])
     out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert out["frames"] == 4
     assert np.isfinite(out["ate_rmse_m"])
@@ -56,7 +56,7 @@ def test_slam_eval_cli_smoke(tmp_path, capsys):
     # the mesh app through the same CLI (8-device virtual mesh)
     slam_eval.main(["--pipeline", "warpsense-sharded", "--frames", "4",
                     "--channels", "16", "--columns", "256",
-                    "--map-out", str(tmp_path / "ms.h5")])
+                    "--map-out", str(tmp_path / "ms")])
     out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert out["pipeline"] == "warpsense-sharded"
     assert np.isfinite(out["ate_rmse_m"])
@@ -66,8 +66,8 @@ def test_feature_compare_includes_floam_twin():
     """feature_compare reports the independent original-F-LOAM selection
     (frontends/featsense/floam_original.py, reproducing test/floam.h) —
     a second, non-self-referential implementation next to the host twin."""
-    from warpsense_tpu.eval.feature_compare import run
-    from warpsense_tpu.io.synthetic import BoxWorld, render_scan
+    from warpsense.eval.feature_compare import run
+    from warpsense.io.synthetic import BoxWorld, render_scan
 
     cloud = render_scan(BoxWorld.default(), np.eye(4), channels=32,
                         columns=256, max_range=22.0, noise_std=0.005,
@@ -82,7 +82,7 @@ def test_feature_compare_includes_floam_twin():
 def test_floam_original_rules():
     """Edges exceed the 0.1 curvature gate; <=20 edges per sector; every
     unpicked sector point lands in surf (floam.h:30-148 semantics)."""
-    from warpsense_tpu.frontends.featsense.floam_original import \
+    from warpsense.frontends.featsense.floam_original import \
         floam_original_features
 
     rng = np.random.default_rng(5)

@@ -1,4 +1,4 @@
-"""Exactness guards for the TPU-specific numeric replacements.
+"""Exactness guards for the fusion's numeric replacements.
 
 _div_trunc_by_pos replaced the merge's int32 division with guarded f32
 math on a proof that it is bit-identical below 2^24 — this pins the proof
@@ -9,8 +9,8 @@ import numpy as np
 
 import jax.numpy as jnp
 
-from warpsense_tpu.ops.tsdf_projective import _div_trunc_by_pos
-from warpsense_tpu.core.geometry import div_trunc
+from warpsense.ops.tsdf_projective import _div_trunc_by_pos
+from warpsense.core.geometry import div_trunc
 
 
 def test_div_trunc_by_pos_matches_int_division_fuzz():
@@ -46,11 +46,11 @@ def test_div_trunc_by_pos_integer_boundaries():
 
 
 def test_resolve_fusion_dispatch():
-    from warpsense_tpu.pipeline.fusion_backend import resolve_fusion
+    from warpsense.pipeline.fusion_backend import resolve_fusion
 
     # explicit names pass through untouched
-    for name in ("raymarch", "projective", "pallas"):
-        assert resolve_fusion(name, size=(9, 9, 999), channels=256) == name
-    # auto on the CPU test backend resolves to the XLA sweep
-    assert resolve_fusion("auto", size=(33, 33, 33),
-                          channels=32) == "projective"
+    for name in ("raymarch", "projective", "projective-level"):
+        assert resolve_fusion(name) == name
+    # auto is the level sweep on every backend, window and sensor —
+    # windows taller than 256 voxels included
+    assert resolve_fusion("auto") == "projective-level"

@@ -3,9 +3,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from warpsense_tpu.frontends.featsense import features as dev
-from warpsense_tpu.frontends.featsense import features_reference as ref
-from warpsense_tpu.io.synthetic import BoxWorld, render_scan
+from warpsense.frontends.featsense import features as dev
+from warpsense.frontends.featsense import features_reference as ref
+from warpsense.io.synthetic import BoxWorld, render_scan
 
 PARAMS = ref.FeatureParams(min_distance=0.5, max_distance=40.0,
                            edge_threshold=0.5, surf_threshold=0.05)

@@ -4,8 +4,8 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from warpsense_tpu.core import geometry
-from warpsense_tpu.frontends.featsense import odometry as odo
+from warpsense.core import geometry
+from warpsense.frontends.featsense import odometry as odo
 
 
 def _perturbed_pose(seed=0, rot=0.05, trans=0.2):
@@ -201,8 +201,8 @@ def test_occupied_prefix_bucketing_is_exact():
     """Slicing feature maps to the occupied power-of-2 prefix must not
     change the solve: masked entries were +inf in the distance matrix, so
     the 5-NN sets (and everything downstream) are identical.  This is the
-    production fast path in OdomEstimation.update (odometry halved on v5e
-    by shrinking the knn map side)."""
+    production fast path in OdomEstimation.update (it shrinks the knn map
+    side)."""
     rng = np.random.default_rng(7)
     cap_e, cap_s = 512, 1024
     ne, ns = 60, 300

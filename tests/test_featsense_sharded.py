@@ -12,10 +12,10 @@ bit-identical per shard), and the mesh back end shifts + persists.
 import numpy as np
 import pytest
 
-from warpsense_tpu.core.config import Params
-from warpsense_tpu.io.synthetic import BoxWorld, render_scan, walk_trajectory
-from warpsense_tpu.parallel.sharded import make_mesh
-from warpsense_tpu.pipeline.featsense import FeatsenseApp
+from warpsense.core.config import Params
+from warpsense.io.synthetic import BoxWorld, render_scan, walk_trajectory
+from warpsense.parallel.sharded import make_mesh
+from warpsense.pipeline.featsense import FeatsenseApp
 
 WINDOW = (160, 101, 41)      # x divisible by the 8-device mesh
 CH, COLS = 32, 512
@@ -54,8 +54,8 @@ def walk_scans():
 
 def test_featsense_sharded_backend_matches_single_chip(tmp_path, walk_scans):
     scans, truth = walk_scans
-    one = make_app(tmp_path, "one.h5", fusion="projective-level")
-    many = make_app(tmp_path, "many.h5", mesh=make_mesh(8))
+    one = make_app(tmp_path, "one", fusion="projective-level")
+    many = make_app(tmp_path, "many", mesh=make_mesh(8))
     for i, scan in enumerate(scans):
         p1 = one.process_scan(scan, float(i))
         pN = many.process_scan(scan, float(i))
@@ -77,13 +77,13 @@ def test_featsense_sharded_backend_matches_single_chip(tmp_path, walk_scans):
 
 
 def test_featsense_sharded_shift_and_persist(tmp_path, walk_scans):
-    import h5py
+    from warpsense.map.global_map import GlobalMap
     scans, _ = walk_scans
-    app = make_app(tmp_path, "shift.h5", mesh=make_mesh(8), shift=0.15)
+    app = make_app(tmp_path, "shift", mesh=make_mesh(8), shift=0.15)
     for i, scan in enumerate(scans):
         app.process_scan(scan, float(i))
     moved = np.any(np.asarray(app.mapping.state.pos) != 0)
     app.terminate()
     assert moved, "sharded featsense window never shifted"
-    with h5py.File(tmp_path / "shift.h5", "r") as f:
-        assert len(f["map"]) > 0 and len(f["poses"]) > 0
+    gm = GlobalMap(tmp_path / "shift", 0, truncate=False)
+    assert len(gm.chunk_tags()) > 0 and len(gm.read_poses()) > 0

@@ -2,8 +2,8 @@
 import numpy as np
 import jax.numpy as jnp
 
-from warpsense_tpu.core import geometry
-from warpsense_tpu.frontends.featsense import vgicp
+from warpsense.core import geometry
+from warpsense.frontends.featsense import vgicp
 
 
 def _room_cloud(n, rng, half=6.0, zhalf=2.0):

@@ -2,10 +2,10 @@
 import numpy as np
 import pytest
 
-from warpsense_tpu.io import pcd
-from warpsense_tpu.io import trajectory as traj
-from warpsense_tpu.io.dataset import PcdDirectoryDataset, SyntheticDataset
-from warpsense_tpu.io.pcl_writer import export
+from warpsense.io import pcd
+from warpsense.io import trajectory as traj
+from warpsense.io.dataset import PcdDirectoryDataset, SyntheticDataset
+from warpsense.io.pcl_writer import export
 
 
 def _cloud(n=257, seed=0):
@@ -91,8 +91,8 @@ def test_synthetic_dataset_and_export_roundtrip(tmp_path):
 def test_tsdf_viz_export(tmp_path):
     import jax.numpy as jnp
 
-    from warpsense_tpu.map.local_map import LocalMapState
-    from warpsense_tpu.obs.viz import export_tsdf_ply, window_skeleton
+    from warpsense.map.local_map import LocalMapState
+    from warpsense.obs.viz import export_tsdf_ply, window_skeleton
 
     size = (11, 11, 11)
     value = np.full(size, 600, np.int16)
@@ -106,7 +106,7 @@ def test_tsdf_viz_export(tmp_path):
                           jnp.asarray([5, 5, 5], jnp.int32))
     n = export_tsdf_ply(tmp_path / "map.ply", state, resolution=64, tau=600)
     assert n == 2
-    from warpsense_tpu.io.pcd import read_ply
+    from warpsense.io.pcd import read_ply
     pts = read_ply(tmp_path / "map.ply")
     # cell (5,5,5) array == global (0,0,0) (pos=0, offset=center)
     assert any(np.allclose(p, [0.032, 0.032, 0.032], atol=1e-5) for p in pts)
@@ -143,7 +143,7 @@ def _lz4_frame(blocks, uncompressed=False) -> bytes:
 
 def test_lz4_block_match_copy():
     """Hand-computed spec vector: literals + overlapping match + tail."""
-    from warpsense_tpu.io.lz4 import decompress_block
+    from warpsense.io.lz4 import decompress_block
 
     # token 0x44: 4 literals 'abcd', match offset 4 len 8 (overlapping ->
     # periodic copy), then a final literals-only sequence 'xyz'
@@ -154,7 +154,7 @@ def test_lz4_block_match_copy():
 
 
 def test_lz4_frame_roundtrip_paths():
-    from warpsense_tpu.io.lz4 import decompress
+    from warpsense.io.lz4 import decompress
 
     payload = bytes(range(256)) * 5 + b"tail"
     # compressed literals-only blocks (exercises length extension)
@@ -174,7 +174,7 @@ def test_lz4_truncated_block_raises():
     """Truncated blocks fail loudly at the source (code-review r4) instead
     of returning short output that garbles downstream record parsing."""
     import pytest
-    from warpsense_tpu.io.lz4 import decompress_block
+    from warpsense.io.lz4 import decompress_block
 
     with pytest.raises(ValueError, match="truncated literals"):
         decompress_block(b"\xF0\x20abc", bytearray())   # claims 47 literals

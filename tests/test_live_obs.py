@@ -8,8 +8,8 @@ import urllib.request
 
 import numpy as np
 
-from warpsense_tpu.map.local_map import LocalMapState
-from warpsense_tpu.obs.live import FileStreamer, HttpMonitor, LiveMonitor
+from warpsense.map.local_map import LocalMapState
+from warpsense.obs.live import FileStreamer, HttpMonitor, LiveMonitor
 
 
 def _state(size=(9, 9, 9), tau=600):
@@ -75,15 +75,15 @@ def test_http_monitor():
 def test_warpsense_publishes_live(tmp_path):
     """A short pipeline run streams pose/map/status through the monitor
     WHILE running (not only at shutdown)."""
-    from warpsense_tpu.eval.slam_eval import default_params
-    from warpsense_tpu.io.dataset import SyntheticDataset
-    from warpsense_tpu.pipeline.warpsense import WarpsenseApp
+    from warpsense.eval.slam_eval import default_params
+    from warpsense.io.dataset import SyntheticDataset
+    from warpsense.pipeline.warpsense import WarpsenseApp
 
     mon = LiveMonitor()
     seen_during_run = []
     mon.subscribe("pose", lambda s, p: seen_during_run.append(len(mon.path)))
     params = default_params(32, 256)
-    app = WarpsenseApp(params, map_path=tmp_path / "m.h5", capacity=8192,
+    app = WarpsenseApp(params, map_path=tmp_path / "m", capacity=8192,
                        monitor=mon)
     for fr in SyntheticDataset(4, channels=32, columns=256):
         app.cloud_callback(fr.cloud, fr.stamp)

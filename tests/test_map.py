@@ -1,13 +1,13 @@
 """Local/global map tests — ports the reference's test/map.cpp `map_raw`
-golden scenario (ring shifts, HDF5 chunk layout) plus ring-index property
+golden scenario (ring shifts, chunk layout) plus ring-index property
 tests against the reference overflow() semantics."""
 import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from warpsense_tpu.map.global_map import GlobalMap, CHUNK_SIZE
-from warpsense_tpu.map.local_map import LocalMap, ring_index, in_bounds
-from warpsense_tpu.map.tsdf_entry import pack, unpack
+from warpsense.map.global_map import GlobalMap, CHUNK_SIZE
+from warpsense.map.local_map import LocalMap, ring_index, in_bounds
+from warpsense.map.tsdf_entry import pack, unpack
 
 DEFAULT_VALUE = 4
 DEFAULT_WEIGHT = 6
@@ -52,7 +52,7 @@ def test_entry_pack_roundtrip():
 
 @pytest.fixture
 def local_map(tmp_path):
-    gm = GlobalMap(tmp_path / "test.h5", DEFAULT_VALUE, DEFAULT_WEIGHT)
+    gm = GlobalMap(tmp_path / "test", DEFAULT_VALUE, DEFAULT_WEIGHT)
     return LocalMap((5, 5, 5), gm)
 
 
@@ -73,7 +73,7 @@ def test_map_raw_golden(local_map):
     assert lm.value_at((0, 0, 0)) == (DEFAULT_VALUE, DEFAULT_WEIGHT)
     assert lm.value_at((-1, 2, 0)) == (1, 1)
 
-    # ---- shift far +x (chunk gets evicted to HDF5)
+    # ---- shift far +x (chunk gets evicted to the global map)
     for x in (5, 10, 15, 20, 24):
         lm.shift((x, 0, 0))
     assert np.asarray(lm.state.pos).tolist() == [24, 0, 0]
@@ -103,24 +103,22 @@ def test_map_raw_golden(local_map):
 
 
 def test_write_back_and_chunk_layout(tmp_path):
-    """HDF5 layout parity: /map/x_y_z uint32 datasets, C-order CS^3."""
-    import h5py
-    gm = GlobalMap(tmp_path / "layout.h5", 100, 0)
+    """Chunk layout parity with the reference's HDF5 schema: map/x_y_z
+    uint32 arrays, C-order CS^3."""
+    gm = GlobalMap(tmp_path / "layout", 100, 0)
     lm = LocalMap((5, 5, 5), gm)
     lm.set_value_at((1, 2, 0), 42, 7)
     lm.write_back()
     gm.close()
-    with h5py.File(tmp_path / "layout.h5") as f:
-        assert "map" in f
-        d = np.asarray(f["map"]["0_0_0"][...])
-        assert d.shape == (CHUNK_SIZE ** 3,)
-        idx = 1 * CHUNK_SIZE * CHUNK_SIZE + 2 * CHUNK_SIZE + 0
-        v, w = unpack(d[idx])
-        assert (int(v), int(w)) == (42, 7)
+    d = np.load(tmp_path / "layout" / "map" / "0_0_0.npy")
+    assert d.dtype == np.uint32 and d.shape == (CHUNK_SIZE ** 3,)
+    idx = 1 * CHUNK_SIZE * CHUNK_SIZE + 2 * CHUNK_SIZE + 0
+    v, w = unpack(d[idx])
+    assert (int(v), int(w)) == (42, 7)
 
 
 def test_global_map_resume(tmp_path):
-    path = tmp_path / "resume.h5"
+    path = tmp_path / "resume"
     gm = GlobalMap(path, 100, 0)
     gm.set_value_raw((70, 0, 0), pack(np.int16(-5), np.int16(9)))
     gm.write_pose([1.0, 2.0, 3.0], [0, 0, 0, 1])
@@ -137,7 +135,7 @@ def test_global_map_resume(tmp_path):
 
 
 def test_lru_eviction_persists(tmp_path):
-    gm = GlobalMap(tmp_path / "lru.h5", 0, 0)
+    gm = GlobalMap(tmp_path / "lru", 0, 0)
     # touch more chunks than the LRU can hold
     for i in range(80):
         gm.set_value_raw((i * CHUNK_SIZE, 0, 0), i + 1)
@@ -163,10 +161,10 @@ def test_absorb_then_shift_mutable(tmp_path):
     """absorb() must deep-copy device arrays: jax arrays view as read-only
     numpy and shift() mutates the host mirror in place (regression)."""
     import jax.numpy as jnp
-    from warpsense_tpu.map.global_map import GlobalMap
-    from warpsense_tpu.map.local_map import LocalMap, LocalMapState
+    from warpsense.map.global_map import GlobalMap
+    from warpsense.map.local_map import LocalMap, LocalMapState
 
-    gm = GlobalMap(tmp_path / "absorb.h5", 600, 0)
+    gm = GlobalMap(tmp_path / "absorb", 600, 0)
     lm = LocalMap((7, 7, 7), gm)
     state = LocalMapState(*(jnp.asarray(x) for x in lm.state))
     lm.absorb(state)
@@ -176,9 +174,9 @@ def test_absorb_then_shift_mutable(tmp_path):
 
 def test_device_backed_shift_matches_host_shift(tmp_path):
     """attach_device slab-only shift == the host-mirror shift: same window
-    content after the same shift sequence, same HDF5 evictions."""
+    content after the same shift sequence, same evictions."""
     import jax.numpy as jnp
-    from warpsense_tpu.map.local_map import LocalMapState
+    from warpsense.map.local_map import LocalMapState
 
     rng = np.random.default_rng(7)
     size = (13, 13, 13)
@@ -193,12 +191,12 @@ def test_device_backed_shift_matches_host_shift(tmp_path):
         return lm
 
     # host path
-    lm_h = build(tmp_path / "host.h5")
+    lm_h = build(tmp_path / "host")
     for p in ((5, 0, 0), (5, -3, 2), (-1, -3, 2)):
         lm_h.shift(p)
 
     # device-backed path (same data as jnp arrays)
-    lm_d = build(tmp_path / "dev.h5")
+    lm_d = build(tmp_path / "dev")
     state = LocalMapState(value=jnp.asarray(v), weight=jnp.asarray(w),
                           pos=jnp.zeros(3, jnp.int32),
                           offset=jnp.asarray([s // 2 for s in size],
@@ -213,3 +211,27 @@ def test_device_backed_shift_matches_host_shift(tmp_path):
     np.testing.assert_array_equal(np.asarray(state.pos), lm_h.state.pos)
     np.testing.assert_array_equal(np.asarray(state.offset),
                                   lm_h.state.offset)
+
+
+def test_merge_maps_exports_hdf5(tmp_path):
+    """merge_maps writes the reference's HDF5 schema (/map/x_y_z uint32
+    datasets with the meta attributes, /poses/<n>/pose) from a map store,
+    for the tools that read it; the store itself needs no h5py."""
+    h5py = pytest.importorskip("h5py")
+    from warpsense.eval.merge_maps import merge
+
+    gm = GlobalMap(tmp_path / "run", 100, 0, meta={"tau": 600})
+    lm = LocalMap((5, 5, 5), gm)
+    lm.set_value_at((1, 2, 0), 42, 7)
+    lm.write_back()
+    gm.write_pose([1.0, 2.0, 3.0], [0.0, 0.0, 0.0, 1.0])
+    gm.close()
+    stats = merge([tmp_path / "run"], tmp_path / "run.h5")
+    assert stats == {"inputs": 1, "chunks": len(gm.chunk_tags()), "poses": 1}
+    with h5py.File(tmp_path / "run.h5", "r") as f:
+        assert int(f["map"].attrs["tau"]) == 600
+        for tag in gm.chunk_tags():
+            np.testing.assert_array_equal(f["map"][tag][...],
+                                          gm.read_chunk(tag))
+        np.testing.assert_allclose(f["poses"]["0"]["pose"][...],
+                                   [1, 2, 3, 0, 0, 0, 1])

@@ -4,7 +4,7 @@ import threading
 import numpy as np
 import pytest
 
-from warpsense_tpu.native import load as load_native
+from warpsense.native import load as load_native
 
 lib = load_native()
 needs_native = pytest.mark.skipif(lib is None,
@@ -18,7 +18,7 @@ def test_version():
 
 @needs_native
 def test_byte_queue_fifo_and_force():
-    from warpsense_tpu.utils.native_queue import NativeByteQueue
+    from warpsense.utils.native_queue import NativeByteQueue
 
     q = NativeByteQueue(2, lib)
     assert q.push(b"a") and q.push(b"b")
@@ -32,7 +32,7 @@ def test_byte_queue_fifo_and_force():
 
 @needs_native
 def test_byte_queue_blocking_producer_consumer():
-    from warpsense_tpu.utils.native_queue import NativeByteQueue
+    from warpsense.utils.native_queue import NativeByteQueue
 
     q = NativeByteQueue(4, lib)
     got = []
@@ -54,7 +54,7 @@ def test_byte_queue_blocking_producer_consumer():
 
 
 def test_scan_queue_roundtrip_any_backend():
-    from warpsense_tpu.utils.native_queue import ScanQueue
+    from warpsense.utils.native_queue import ScanQueue
 
     q = ScanQueue(4)
     cloud = np.random.default_rng(0).normal(0, 1, (8, 16, 3)).astype(np.float32)
@@ -69,7 +69,7 @@ def test_scan_queue_roundtrip_any_backend():
 def test_preprocess_host_matches_device():
     import jax.numpy as jnp
 
-    from warpsense_tpu.ops.preprocess import preprocess, preprocess_host
+    from warpsense.ops.preprocess import preprocess, preprocess_host
 
     rng = np.random.default_rng(5)
     pts = rng.uniform(-5, 5, (2000, 3)).astype(np.float32)
@@ -94,8 +94,8 @@ def test_preprocess_host_matches_device():
 def test_slab_gather_scatter_matches_numpy(tmp_path):
     """Native save/load area must produce the identical global map + window
     as the pure-numpy path across a multi-axis shift."""
-    from warpsense_tpu.map.global_map import GlobalMap
-    from warpsense_tpu.map.local_map import LocalMap
+    from warpsense.map.global_map import GlobalMap
+    from warpsense.map.local_map import LocalMap
 
     rng = np.random.default_rng(7)
 
@@ -111,9 +111,9 @@ def test_slab_gather_scatter_matches_numpy(tmp_path):
         return gm, lm
 
     rng = np.random.default_rng(7)
-    gm_a, a = build("native.h5", disable_native=False)
+    gm_a, a = build("native", disable_native=False)
     rng = np.random.default_rng(7)
-    gm_b, b = build("numpy.h5", disable_native=True)
+    gm_b, b = build("numpy", disable_native=True)
     assert a._native is not None, "native lib should be loaded in this test"
 
     for target in ([5, -3, 2], [-2, 4, -6], [0, 0, 0]):
@@ -126,9 +126,6 @@ def test_slab_gather_scatter_matches_numpy(tmp_path):
     gm_a.close()
     gm_b.close()
 
-    import h5py
-    with h5py.File(tmp_path / "native.h5") as fa, \
-            h5py.File(tmp_path / "numpy.h5") as fb:
-        assert set(fa["map"].keys()) == set(fb["map"].keys())
-        for k in fa["map"]:
-            np.testing.assert_array_equal(fa["map"][k][...], fb["map"][k][...])
+    assert gm_a.chunk_tags() == gm_b.chunk_tags()
+    for k in gm_a.chunk_tags():
+        np.testing.assert_array_equal(gm_a.read_chunk(k), gm_b.read_chunk(k))

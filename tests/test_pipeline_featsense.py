@@ -2,9 +2,9 @@
 import numpy as np
 import pytest
 
-from warpsense_tpu.core.config import Params
-from warpsense_tpu.io.synthetic import BoxWorld, render_scan
-from warpsense_tpu.pipeline.featsense import FeatsenseApp, ThreadedFeatsenseRunner
+from warpsense.core.config import Params
+from warpsense.io.synthetic import BoxWorld, render_scan
+from warpsense.pipeline.featsense import FeatsenseApp, ThreadedFeatsenseRunner
 
 
 def make_params():
@@ -46,7 +46,7 @@ def scans_and_truth():
 
 def test_featsense_app_tracks_trajectory(tmp_path, scans_and_truth):
     scans, truth = scans_and_truth
-    app = FeatsenseApp(make_params(), map_path=tmp_path / "fs.h5",
+    app = FeatsenseApp(make_params(), map_path=tmp_path / "fs",
                        edge_capacity=512, surf_capacity=1024,
                        cloud_capacity=4096,
                        odom_kwargs=dict(edge_map_capacity=2048,
@@ -58,15 +58,15 @@ def test_featsense_app_tracks_trajectory(tmp_path, scans_and_truth):
     app.terminate()
     assert errs[-1] < 0.12, f"featsense trajectory errors {errs}"
     # TSDF map got fused and persisted
-    import h5py
-    with h5py.File(tmp_path / "fs.h5") as f:
-        assert "map" in f and len(f["map"]) > 0
-        assert "poses" in f and len(f["poses"]) > 0
+    from warpsense.map.global_map import GlobalMap
+    gm = GlobalMap(tmp_path / "fs", 0, truncate=False)
+    assert len(gm.chunk_tags()) > 0
+    assert len(gm.read_poses()) > 0
 
 
 def test_mapping_gates_on_update_distance(tmp_path, scans_and_truth):
     scans, truth = scans_and_truth
-    app = FeatsenseApp(make_params(), map_path=tmp_path / "gate.h5",
+    app = FeatsenseApp(make_params(), map_path=tmp_path / "gate",
                        edge_capacity=512, surf_capacity=1024,
                        cloud_capacity=4096,
                        odom_kwargs=dict(edge_map_capacity=2048,
@@ -84,7 +84,7 @@ def test_mapping_gates_on_update_distance(tmp_path, scans_and_truth):
 
 def test_threaded_runner_matches_sequential(tmp_path, scans_and_truth):
     scans, truth = scans_and_truth
-    seq = FeatsenseApp(make_params(), map_path=tmp_path / "seq.h5",
+    seq = FeatsenseApp(make_params(), map_path=tmp_path / "seq",
                        edge_capacity=512, surf_capacity=1024,
                        cloud_capacity=4096,
                        odom_kwargs=dict(edge_map_capacity=2048,
@@ -92,7 +92,7 @@ def test_threaded_runner_matches_sequential(tmp_path, scans_and_truth):
     for scan in scans[:4]:
         seq.process_scan(scan)
 
-    thr_app = FeatsenseApp(make_params(), map_path=tmp_path / "thr.h5",
+    thr_app = FeatsenseApp(make_params(), map_path=tmp_path / "thr",
                            edge_capacity=512, surf_capacity=1024,
                            cloud_capacity=4096,
                            odom_kwargs=dict(edge_map_capacity=2048,

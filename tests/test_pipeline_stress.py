@@ -7,11 +7,11 @@ generation must still track."""
 import numpy as np
 import pytest
 
-from warpsense_tpu.core.config import Params
-from warpsense_tpu.io.synthetic import (BoxWorld, circular_trajectory,
-                                        imu_stream_for, render_scan)
-from warpsense_tpu.pipeline.warpsense import WarpsenseApp
-from warpsense_tpu.utils.imu import ImuSample
+from warpsense.core.config import Params
+from warpsense.io.synthetic import (BoxWorld, circular_trajectory,
+                                    imu_stream_for, render_scan)
+from warpsense.pipeline.warpsense import WarpsenseApp
+from warpsense.utils.imu import ImuSample
 
 N_SCANS = 60
 SCAN_DT = 0.05
@@ -42,7 +42,7 @@ def test_fast_motion_envelope(tmp_path, coarse):
     gt = circular_trajectory(N_SCANS, radius=2.0, z=0.3)
     rng = np.random.default_rng(3)
 
-    app = WarpsenseApp(params, map_path=tmp_path / f"s{coarse}.h5",
+    app = WarpsenseApp(params, map_path=tmp_path / f"s{coarse}",
                        capacity=8192, max_range_mm=22000)
     imu = imu_stream_for(gt, SCAN_DT)
     est = []
@@ -62,13 +62,13 @@ def test_fast_motion_envelope(tmp_path, coarse):
 def test_featsense_projective_backend(tmp_path):
     """Featsense's shared TSDF back end runs on the production projective
     path (fusion='projective'/'auto'), not only the parity ray-march."""
-    from warpsense_tpu.eval.slam_eval import default_params, run_featsense
-    from warpsense_tpu.io.dataset import SyntheticDataset
+    from warpsense.eval.slam_eval import default_params
+    from warpsense.io.dataset import SyntheticDataset
 
     params = default_params(32, 256)
     ds = list(SyntheticDataset(6, channels=32, columns=256))
-    from warpsense_tpu.pipeline.featsense import FeatsenseApp
-    app = FeatsenseApp(params, map_path=tmp_path / "fp.h5",
+    from warpsense.pipeline.featsense import FeatsenseApp
+    app = FeatsenseApp(params, map_path=tmp_path / "fp",
                        edge_capacity=1024, surf_capacity=2048,
                        cloud_capacity=8192, fusion="projective")
     poses = [app.process_scan(fr.cloud, fr.stamp) for fr in ds]
@@ -79,6 +79,5 @@ def test_featsense_projective_backend(tmp_path):
         np.einsum("ij,njk->nik", gt[0], est)[:, :3, 3] - gt[:, :3, 3],
         axis=1)
     assert float(np.sqrt(np.mean(err ** 2))) < 0.5
-    import h5py
-    with h5py.File(tmp_path / "fp.h5", "r") as f:
-        assert len(f["map"]) > 0
+    from warpsense.map.global_map import GlobalMap
+    assert len(GlobalMap(tmp_path / "fp", 0, truncate=False).chunk_tags()) > 0

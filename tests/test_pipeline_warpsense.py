@@ -7,11 +7,11 @@ trajectory, run the SLAM loop, compare the estimated path to ground truth.
 import numpy as np
 import pytest
 
-from warpsense_tpu.core.config import Params
-from warpsense_tpu.io.synthetic import (BoxWorld, circular_trajectory,
-                                        imu_stream_for, render_scan)
-from warpsense_tpu.pipeline.warpsense import WarpsenseApp
-from warpsense_tpu.utils.imu import ImuSample
+from warpsense.core.config import Params
+from warpsense.io.synthetic import (BoxWorld, circular_trajectory,
+                                    imu_stream_for, render_scan)
+from warpsense.pipeline.warpsense import WarpsenseApp
+from warpsense.utils.imu import ImuSample
 
 N_SCANS = 60          # half circle at ~62 mm / 3 deg per scan —
 SCAN_DT = 0.05        # inside the warpsense operating envelope (20 Hz-ish)
@@ -32,7 +32,7 @@ def slam_run(tmp_path_factory):
     gt = circular_trajectory(2 * N_SCANS, radius=1.2, z=0.3)[:N_SCANS]
     rng = np.random.default_rng(0)
 
-    app = WarpsenseApp(params, map_path=tmp / "slam.h5", capacity=8192,
+    app = WarpsenseApp(params, map_path=tmp / "slam", capacity=8192,
                        max_range_mm=22000)
     imu = imu_stream_for(gt, SCAN_DT)
     est = []
@@ -45,7 +45,7 @@ def slam_run(tmp_path_factory):
                            max_range=22.0, noise_std=0.01, rng=rng)
         est.append(app.cloud_callback(scan, stamp).copy())
     app.terminate()
-    return gt, np.stack(est), tmp / "slam.h5"
+    return gt, np.stack(est), tmp / "slam"
 
 
 @pytest.fixture(scope="module")
@@ -65,7 +65,7 @@ def slam_run_fast(tmp_path_factory):
     gt = circular_trajectory(2 * N_SCANS, radius=1.2, z=0.3)[:N_SCANS]
     rng = np.random.default_rng(0)
 
-    app = WarpsenseApp(params, map_path=tmp / "slam.h5", capacity=8192,
+    app = WarpsenseApp(params, map_path=tmp / "slam", capacity=8192,
                        max_range_mm=22000)
     imu = imu_stream_for(gt, SCAN_DT)
     est, iters = [], []
@@ -112,7 +112,7 @@ def test_trajectory_ate_fast_subvoxel(slam_run_fast):
 
 def test_poses_persisted(slam_run):
     _, est, path = slam_run
-    from warpsense_tpu.map.global_map import GlobalMap
+    from warpsense.map.global_map import GlobalMap
     gm = GlobalMap(path, 0, truncate=False)
     poses = gm.read_poses()
     gm.close()
@@ -123,13 +123,13 @@ def test_poses_persisted(slam_run):
 
 def test_map_persisted_nonempty(slam_run):
     _, _, path = slam_run
-    import h5py
-    with h5py.File(path, "r") as f:
-        chunks = list(f["map"].keys())
-        assert len(chunks) > 4
-        total = sum(int(np.count_nonzero(f["map"][c][...] >> 16))
-                    for c in chunks)
-        assert total > 10000  # plenty of weighted voxels persisted
+    from warpsense.map.global_map import GlobalMap
+    gm = GlobalMap(path, 0, truncate=False)
+    chunks = gm.chunk_tags()
+    assert len(chunks) > 4
+    total = sum(int(np.count_nonzero(gm.read_chunk(c) >> 16))
+                for c in chunks)
+    assert total > 10000  # plenty of weighted voxels persisted
 
 
 def test_sane_step_gate_and_velocity_prior_health(tmp_path):
@@ -139,10 +139,10 @@ def test_sane_step_gate_and_velocity_prior_health(tmp_path):
     scene's ballistic-runaway guard (config.sane_step_m /
     velocity_prior)."""
     import jax.numpy as jnp
-    from warpsense_tpu.core.config import Params
-    from warpsense_tpu.io.synthetic import BoxWorld, render_scan, \
+    from warpsense.core.config import Params
+    from warpsense.io.synthetic import BoxWorld, render_scan, \
         walk_trajectory
-    from warpsense_tpu.pipeline.warpsense import WarpsenseApp
+    from warpsense.pipeline.warpsense import WarpsenseApp
 
     params = Params.from_dict({
         "map": {"max_distance": 0.6, "resolution": 128, "max_weight": 10,
@@ -153,7 +153,7 @@ def test_sane_step_gate_and_velocity_prior_health(tmp_path):
                          "sane_step_m": 0.5},
         "lidar": {"channels": 16, "hresolution": 128},
     })
-    app = WarpsenseApp(params, map_path=tmp_path / "gate.h5",
+    app = WarpsenseApp(params, map_path=tmp_path / "gate",
                        capacity=2048, sync_shift=True)
     world = BoxWorld.default()
     rng = np.random.default_rng(0)

@@ -1,9 +1,9 @@
 """Checkpoint/resume: persisted map + poses survive a restart."""
 import numpy as np
 
-from warpsense_tpu.core.config import Params
-from warpsense_tpu.io.synthetic import BoxWorld, render_scan, walk_trajectory
-from warpsense_tpu.pipeline.warpsense import WarpsenseApp
+from warpsense.core.config import Params
+from warpsense.io.synthetic import BoxWorld, render_scan, walk_trajectory
+from warpsense.pipeline.warpsense import WarpsenseApp
 
 
 def make_params():
@@ -23,7 +23,7 @@ def test_warpsense_resume_continues_trajectory(tmp_path):
     rng = np.random.default_rng(0)
     scans = [render_scan(world, p, channels=32, columns=512,
                          noise_std=0.002, rng=rng) for p in poses]
-    path = tmp_path / "resume.h5"
+    path = tmp_path / "resume"
 
     app = WarpsenseApp(make_params(), map_path=path, capacity=8192)
     for scan, stamp in zip(scans[:4], range(4)):
@@ -70,14 +70,14 @@ def test_featsense_resume_continues_trajectory(tmp_path):
     """Featsense resume parity (VERDICT r3 #8): the persisted pose becomes
     a world-frame offset over the restarted F-LOAM odometry, and the
     reloaded window carries the fused map."""
-    from warpsense_tpu.pipeline.featsense import FeatsenseApp
+    from warpsense.pipeline.featsense import FeatsenseApp
 
     world = BoxWorld.default()
     poses = walk_trajectory(8, step_m=0.1)
     rng = np.random.default_rng(1)
     scans = [render_scan(world, p, channels=32, columns=512,
                          noise_std=0.002, rng=rng) for p in poses]
-    path = tmp_path / "fs_resume.h5"
+    path = tmp_path / "fs_resume"
     kw = dict(edge_capacity=512, surf_capacity=1024, cloud_capacity=4096,
               odom_kwargs=dict(edge_map_capacity=2048,
                                surf_map_capacity=4096))

@@ -14,10 +14,10 @@ import struct
 import numpy as np
 import pytest
 
-from warpsense_tpu.io.rosbag import (BagWriter, ImuMsg, PointCloud2,
-                                     RosbagDataset, bag_to_npz, destagger,
-                                     organize_cloud, read_bag)
-from warpsense_tpu.utils.imu import ImuSample, MadgwickFilter
+from warpsense.io.rosbag import (BagWriter, ImuMsg, PointCloud2,
+                                 RosbagDataset, bag_to_npz, destagger,
+                                 organize_cloud, read_bag)
+from warpsense.utils.imu import ImuSample, MadgwickFilter
 
 
 def test_bag_roundtrip(tmp_path):
@@ -120,7 +120,7 @@ def test_madgwick_gravity_pulls_back():
     for i in range(30, 600):
         q = f.update(i * 0.01, [0, 0, 0], [0, 0, 9.81])
     # gravity observation corrects roll/pitch back to level
-    from warpsense_tpu.utils.imu import _quat_to_mat_np
+    from warpsense.utils.imu import _quat_to_mat_np
     R = _quat_to_mat_np(q)
     assert abs(R[2, 2] - 1.0) < 1e-3
 
@@ -136,8 +136,8 @@ def test_madgwick_raw_samples_into_fastsense_shape():
 def test_bag_driven_warpsense_e2e(tmp_path):
     """Synthesize a bag from the box world, run warpsense FROM THE BAG,
     assert the trajectory tracks ground truth."""
-    from warpsense_tpu.eval.slam_eval import (default_params, run_warpsense)
-    from warpsense_tpu.io.dataset import SyntheticDataset
+    from warpsense.eval.slam_eval import (default_params, run_warpsense)
+    from warpsense.io.dataset import SyntheticDataset
 
     CH, COLS = 32, 256
     synth = SyntheticDataset(8, channels=CH, columns=COLS)
@@ -154,7 +154,7 @@ def test_bag_driven_warpsense_e2e(tmp_path):
     for fr, g in zip(frames, gt):
         fr.ground_truth = g
     params = default_params(CH, COLS)
-    stats = run_warpsense(frames, params, tmp_path / "m.h5", capacity=8192)
+    stats = run_warpsense(frames, params, tmp_path / "m", capacity=8192)
     assert stats["frames"] == 8
     assert stats["ate_rmse_m"] < 0.3, stats
 
@@ -162,8 +162,8 @@ def test_bag_driven_warpsense_e2e(tmp_path):
 def test_bag_driven_featsense_e2e(tmp_path):
     """Featsense (organized-scan front end) runs from bag bytes — the
     ingestion the reference needs ROS playback for."""
-    from warpsense_tpu.eval.slam_eval import (default_params, run_featsense)
-    from warpsense_tpu.io.dataset import SyntheticDataset
+    from warpsense.eval.slam_eval import (default_params, run_featsense)
+    from warpsense.io.dataset import SyntheticDataset
 
     CH, COLS = 32, 256
     synth = SyntheticDataset(6, channels=CH, columns=COLS)
@@ -179,7 +179,7 @@ def test_bag_driven_featsense_e2e(tmp_path):
     for fr, g in zip(frames, gt):
         fr.ground_truth = g
     params = default_params(CH, COLS)
-    stats = run_featsense(frames, params, tmp_path / "m.h5",
+    stats = run_featsense(frames, params, tmp_path / "m",
                           edge_capacity=1024, surf_capacity=2048,
                           cloud_capacity=8192)
     assert stats["frames"] == 6

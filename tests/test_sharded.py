@@ -9,12 +9,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from warpsense_tpu.core.consts import MATRIX_RESOLUTION, WEIGHT_RESOLUTION
-from warpsense_tpu.map.local_map import LocalMapState
-from warpsense_tpu.ops.registration import register_cloud
-from warpsense_tpu.ops.tsdf import plan_raymarch, tsdf_update
-from warpsense_tpu.parallel.sharded import (make_mesh, register_cloud_sharded,
-                                            shard_state, tsdf_update_sharded)
+from warpsense.core.consts import MATRIX_RESOLUTION, WEIGHT_RESOLUTION
+from warpsense.map.local_map import LocalMapState
+from warpsense.ops.registration import register_cloud
+from warpsense.ops.tsdf import plan_raymarch, tsdf_update
+from warpsense.parallel.sharded import (make_mesh, register_cloud_sharded,
+                                        shard_state, tsdf_update_sharded)
 
 TAU = 600
 RES = 64

@@ -10,11 +10,11 @@ which shifts + persists like the reference orchestration
 import numpy as np
 import pytest
 
-from warpsense_tpu.core.config import Params
-from warpsense_tpu.io.synthetic import BoxWorld, render_scan, walk_trajectory
-from warpsense_tpu.parallel.sharded import make_mesh
-from warpsense_tpu.pipeline.warpsense import WarpsenseApp
-from warpsense_tpu.pipeline.warpsense_sharded import ShardedWarpsenseApp
+from warpsense.core.config import Params
+from warpsense.io.synthetic import BoxWorld, render_scan, walk_trajectory
+from warpsense.parallel.sharded import make_mesh
+from warpsense.pipeline.warpsense import WarpsenseApp
+from warpsense.pipeline.warpsense_sharded import ShardedWarpsenseApp
 
 WINDOW = (160, 101, 41)      # x divisible by the 8-device mesh
 CH, COLS = 32, 512
@@ -49,12 +49,12 @@ def test_sharded_app_matches_single_chip(tmp_path, walk_scans):
     projective fusion twin) and the 8-device mesh app: trajectories agree
     to numerical (psum-ordering) noise."""
     scans, truth = walk_scans
-    one = WarpsenseApp(make_params(), map_path=tmp_path / "one.h5",
+    one = WarpsenseApp(make_params(), map_path=tmp_path / "one",
                        capacity=8192, fusion="projective-level",
                        force_odd=False, window_size=WINDOW)
     mesh = make_mesh(8)
     many = ShardedWarpsenseApp(make_params(), mesh=mesh,
-                               map_path=tmp_path / "many.h5",
+                               map_path=tmp_path / "many",
                                capacity=8192, window_size=WINDOW)
     for i, scan in enumerate(scans[:6]):
         p1 = one.cloud_callback(scan, float(i))
@@ -83,7 +83,7 @@ def test_sharded_app_shift_and_persist(tmp_path, walk_scans):
     # the CPU virtual mesh; see ShardedWarpsenseApp.__init__ on why sync
     # is the default for real multi-chip meshes)
     app = ShardedWarpsenseApp(make_params(shift=0.25), mesh=mesh,
-                              map_path=tmp_path / "shift.h5",
+                              map_path=tmp_path / "shift",
                               capacity=8192, window_size=WINDOW,
                               sync_shift=False)
     errs = []
@@ -98,14 +98,14 @@ def test_sharded_app_shift_and_persist(tmp_path, walk_scans):
     # and is collected at the next callback or at terminate)
     assert np.any(np.asarray(app.local_map.state.pos) != 0)
 
-    import h5py
-    with h5py.File(tmp_path / "shift.h5") as f:
-        assert "map" in f and len(f["map"]) > 0
-        assert "poses" in f and len(f["poses"]) == len(scans)
+    from warpsense.map.global_map import GlobalMap
+    gm = GlobalMap(tmp_path / "shift", 0, truncate=False)
+    assert len(gm.chunk_tags()) > 0
+    assert len(gm.read_poses()) == len(scans)
 
     # resume re-places the window on the mesh and continues
     app2 = ShardedWarpsenseApp(make_params(shift=0.25), mesh=mesh,
-                               map_path=tmp_path / "shift.h5",
+                               map_path=tmp_path / "shift",
                                capacity=8192, window_size=WINDOW,
                                resume=True)
     assert app2.initialized
@@ -120,10 +120,10 @@ def test_sharded_app_fields_cached_across_scans(tmp_path, walk_scans):
     scans, _ = walk_scans
     mesh = make_mesh(8)
     app = ShardedWarpsenseApp(make_params(), mesh=mesh,
-                              map_path=tmp_path / "cache.h5",
+                              map_path=tmp_path / "cache",
                               capacity=8192, window_size=WINDOW)
     calls = []
-    import warpsense_tpu.pipeline.warpsense_sharded as ws
+    import warpsense.pipeline.warpsense_sharded as ws
 
     orig = ws.precompute_fields_packed_sharded
 
@@ -159,10 +159,10 @@ def test_sharded_app_attitude_fallback(tmp_path):
     into the sharded fusion seam)."""
     mesh = make_mesh(8)
     app = ShardedWarpsenseApp(make_params(), mesh=mesh,
-                              map_path=tmp_path / "tilt.h5",
+                              map_path=tmp_path / "tilt",
                               capacity=8192, window_size=WINDOW)
     rots = []
-    import warpsense_tpu.pipeline.warpsense_sharded as ws
+    import warpsense.pipeline.warpsense_sharded as ws
     orig = ws.tsdf_update_projective_sharded
 
     def capture(state, pts, mask, spos, rotation, **kw):
@@ -201,7 +201,7 @@ def test_sharded_app_production_scan_shape(tmp_path):
     (128 x 1024 OS1-128 frames, 32K-point capacity) — round-5 closure of
     the small-scan-only mesh-coverage gap (VERDICT r4 weak #4).  The
     window is CI-sized; the 91M-voxel window runs through the same code
-    in the bench's sharded_1dev_tpu block on hardware."""
+    in chip_smoke.py --four-cards on the cards."""
     params = make_params()
     params.lidar.channels = 128
     params.lidar.hresolution = 1024
@@ -210,11 +210,11 @@ def test_sharded_app_production_scan_shape(tmp_path):
     rng = np.random.default_rng(3)
     scans = [render_scan(world, p, channels=128, columns=1024,
                          noise_std=0.002, rng=rng) for p in poses]
-    one = WarpsenseApp(params, map_path=tmp_path / "p1.h5",
+    one = WarpsenseApp(params, map_path=tmp_path / "p1",
                        capacity=32768, fusion="projective-level",
                        force_odd=False, window_size=WINDOW)
     many = ShardedWarpsenseApp(params, mesh=make_mesh(8),
-                               map_path=tmp_path / "p8.h5",
+                               map_path=tmp_path / "p8",
                                capacity=32768, window_size=WINDOW)
     for i, scan in enumerate(scans):
         p1 = one.cloud_callback(scan, float(i))

@@ -10,13 +10,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from warpsense_tpu.core.consts import WEIGHT_RESOLUTION
-from warpsense_tpu.map.local_map import LocalMapState
-from warpsense_tpu.ops.registration import (precompute_fields_packed,
-                                            precompute_fields_packed2,
-                                            register_cloud_packed)
-from warpsense_tpu.ops.tsdf_projective import tsdf_update_projective
-from warpsense_tpu.parallel.sharded import (
+from warpsense.core.consts import WEIGHT_RESOLUTION
+from warpsense.map.local_map import LocalMapState
+from warpsense.ops.registration import (precompute_fields_packed,
+                                        precompute_fields_packed2,
+                                        register_cloud_packed)
+from warpsense.ops.tsdf_projective import tsdf_update_projective
+from warpsense.parallel.sharded import (
     make_mesh, precompute_fields_packed_sharded,
     register_cloud_packed_sharded, shard_state,
     tsdf_update_projective_sharded)
@@ -143,30 +143,41 @@ def test_packed_registration_sharded_gather_freeze(fused_pair):
                                rtol=1e-5, atol=2e-3)
 
 
-def test_sharded_pallas_level_kernel_matches_xla_sweep():
-    """The per-shard Pallas level kernel (kernel="pallas-level", interpret
-    mode on CPU) must be bit-identical to the sharded XLA sweep — this is
-    the path the mesh app runs on real TPUs (round-5: mesh fusion at
-    kernel speed; single-chip parity is pinned at the 91M window by the
-    bench kernel_parity block)."""
-    pts = jnp.asarray(room_cloud())
+def test_sharded_level_fusion_matches_single_chip_level():
+    """The mesh fusion the sharded apps run (level beam grid inside the
+    tilt envelope) equals the single-chip production sweep
+    (fuse_cloud "projective-level") on the 8-device mesh, bit for bit,
+    over two chained fusions from a slightly pitched sensor."""
+    from warpsense.core.config import Params
+    from warpsense.pipeline.fusion_backend import (fuse_cloud,
+                                                   grid_rotation_for)
+
+    params = Params.from_dict({
+        "map": {"max_distance": TAU / 1000.0, "resolution": RES,
+                "max_weight": 32},
+        "lidar": {"channels": CH, "hresolution": COLS},
+    })
+    pts = jnp.asarray(room_cloud(seed=11))
     mask = jnp.ones((pts.shape[0],), bool)
-    kw = dict(size=SIZE, tau=TAU, max_weight=32 * WEIGHT_RESOLUTION,
-              resolution=RES, channels=CH, columns=COLS)
-    mesh = make_mesh(4)
-    spos = jnp.zeros(3, jnp.int32)
-    a = tsdf_update_projective_sharded(
-        shard_state(fresh_state(), mesh), pts, mask, spos, EYE3, mesh=mesh,
-        level=True, kernel="xla", **kw)
-    b = tsdf_update_projective_sharded(
-        shard_state(fresh_state(), mesh), pts, mask, spos, EYE3, mesh=mesh,
-        level=True, kernel="pallas-level", **kw)
-    # second chained fusion from a shifted origin exercises the merge
-    a = tsdf_update_projective_sharded(
-        a, pts, mask, spos + 2, EYE3, mesh=mesh, level=True, kernel="xla",
-        **kw)
-    b = tsdf_update_projective_sharded(
-        b, pts, mask, spos + 2, EYE3, mesh=mesh, level=True,
-        kernel="pallas-level", **kw)
-    np.testing.assert_array_equal(np.asarray(a.value), np.asarray(b.value))
-    np.testing.assert_array_equal(np.asarray(a.weight), np.asarray(b.weight))
+    mesh = make_mesh(8)
+    t = np.radians(1.0)                      # inside the 2-degree envelope
+    pose = np.eye(4, dtype=np.float32)
+    pose[:3, :3] = [[np.cos(t), 0, np.sin(t)], [0, 1, 0],
+                    [-np.sin(t), 0, np.cos(t)]]
+    single, sharded = fresh_state(), shard_state(fresh_state(), mesh)
+    for shift_mm in ([0, 0, 0], [130, -70, 60]):
+        pose[:3, 3] = shift_mm
+        rot, level = grid_rotation_for(pose, 45.0)
+        assert level
+        single = fuse_cloud(single, pts, mask, pose, params=params,
+                            size=SIZE, fusion="projective-level")
+        sharded = tsdf_update_projective_sharded(
+            sharded, pts, mask,
+            jnp.asarray(np.floor(pose[:3, 3] / RES).astype(np.int32)), rot,
+            mesh=mesh, size=SIZE, tau=TAU, max_weight=32 * WEIGHT_RESOLUTION,
+            resolution=RES, channels=CH, columns=COLS, vfov_deg=45.0)
+    np.testing.assert_array_equal(np.asarray(single.value),
+                                  np.asarray(sharded.value))
+    np.testing.assert_array_equal(np.asarray(single.weight),
+                                  np.asarray(sharded.weight))
+    assert int(np.count_nonzero(np.asarray(single.weight))) > 5000

@@ -1,24 +1,24 @@
 """Window shift with a SHARDED device state attached: per-shard slab
-eviction into the host HDF5 path must round-trip exactly like the
+eviction into the host map path must round-trip exactly like the
 single-device shift (reference semantics: hdf5_local_map.cpp:53-118 +
 tsdf_mapping.cpp:97-136, scaled to a mesh)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
 
-from warpsense_tpu.core.consts import WEIGHT_RESOLUTION
-from warpsense_tpu.map.global_map import GlobalMap
-from warpsense_tpu.map.local_map import LocalMap
-from warpsense_tpu.ops.tsdf_projective import tsdf_update_projective
-from warpsense_tpu.parallel.sharded import (make_mesh, shard_state,
-                                            tsdf_update_projective_sharded)
+from warpsense.core.consts import WEIGHT_RESOLUTION
+from warpsense.map.global_map import GlobalMap
+from warpsense.map.local_map import LocalMap
+from warpsense.ops.tsdf_projective import tsdf_update_projective
+from warpsense.parallel.sharded import (make_mesh, shard_state,
+                                        tsdf_update_projective_sharded)
 
 TAU, RES = 600, 64
 SIZE = (80, 41, 41)
 
 
 def _fused(tmp_path, name, sharded_mesh=None):
-    gm = GlobalMap(tmp_path / f"{name}.h5", TAU, 0)
+    gm = GlobalMap(tmp_path / f"{name}", TAU, 0)
     # force_odd=False: the mesh needs X divisible by 8 — even extents are
     # the supported multi-chip window shape (floor-span convention)
     lm = LocalMap(SIZE, gm, force_odd=False)
@@ -138,7 +138,7 @@ def test_scoped_shift_union_matches_unscoped(tmp_path):
 
 def test_staged_shift_matches_plain_shift(tmp_path):
     """The collective-safe staged shift (begin_shift / shift_io /
-    finish_shift — device work on the caller, HDF5 IO anywhere) must
+    finish_shift — device work on the caller, map IO anywhere) must
     produce exactly the window and global-map content of the axis-
     sequenced ``shift`` (round-5: the mesh app's default overlapped
     shift)."""
@@ -170,12 +170,9 @@ def test_staged_shift_matches_plain_shift(tmp_path):
     lm_b.write_back()
     gm_a.close()
     gm_b.close()
-    import h5py
-    with h5py.File(tmp_path / "plain.h5", "r") as fa, \
-            h5py.File(tmp_path / "staged.h5", "r") as fb:
-        assert set(fa["map"]) == set(fb["map"])
-        for k in fa["map"]:
-            np.testing.assert_array_equal(fa["map"][k][...], fb["map"][k][...])
+    assert gm_a.chunk_tags() == gm_b.chunk_tags()
+    for k in gm_a.chunk_tags():
+        np.testing.assert_array_equal(gm_a.read_chunk(k), gm_b.read_chunk(k))
 
 
 def test_box_diff_partitions_correctly():

@@ -4,11 +4,11 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from warpsense_tpu.core.consts import MATRIX_RESOLUTION, WEIGHT_RESOLUTION
-from warpsense_tpu.map.global_map import GlobalMap
-from warpsense_tpu.map.local_map import LocalMap, LocalMapState
-from warpsense_tpu.ops.tsdf import tsdf_update, plan_raymarch, encode_key, decode_key
-from warpsense_tpu.ops.tsdf_reference import update_tsdf_reference, calc_weight
+from warpsense.core.consts import MATRIX_RESOLUTION, WEIGHT_RESOLUTION
+from warpsense.map.global_map import GlobalMap
+from warpsense.map.local_map import LocalMap
+from warpsense.ops.tsdf import tsdf_update, plan_raymarch, encode_key, decode_key
+from warpsense.ops.tsdf_reference import update_tsdf_reference, calc_weight
 
 TAU = 3000
 RESOLUTION = 1000
@@ -55,7 +55,7 @@ def test_key_order_matches_lattice():
 
 def test_device_golden_line(tmp_path):
     """Single-point golden line must be exact on the device path too."""
-    lm = make_map(tmp_path, "dev_golden.h5")
+    lm = make_map(tmp_path, "dev_golden")
     out = device_update(lm, np.array([[5500, 500, 500]]), max_range=12000)
     expected = {1: TAU, 2: TAU, 3: 2000, 4: 1000, 5: 0, 6: -1000, 7: -2000}
     c = np.asarray(out.offset)  # pos=0 -> array coord = offset + x mod size
@@ -82,13 +82,13 @@ def test_device_matches_reference_random_cloud(tmp_path):
         rng.integers(-3000, 3000, size=n),
     ], axis=1).astype(np.int64)
 
-    lm_ref = make_map(tmp_path, "ref.h5")
+    lm_ref = make_map(tmp_path, "ref")
     update_tsdf_reference(pts, np.zeros(3, np.int64), UP, lm_ref, TAU,
                           MAX_WEIGHT, RESOLUTION, pos_mode="corner")
     ref_v = np.asarray(lm_ref.state.value)
     ref_w = np.asarray(lm_ref.state.weight)
 
-    lm_dev = make_map(tmp_path, "dev.h5")
+    lm_dev = make_map(tmp_path, "dev")
     out = device_update(lm_dev, pts, max_range=16000)
     dev_v = np.asarray(out.value)
     dev_w = np.asarray(out.weight)
@@ -102,7 +102,7 @@ def test_device_matches_reference_random_cloud(tmp_path):
 
 
 def test_device_averaging_accumulates(tmp_path):
-    lm = make_map(tmp_path, "acc.h5")
+    lm = make_map(tmp_path, "acc")
     state = device_update(lm, np.array([[5500, 500, 500]]), max_range=12000)
     lm.absorb(state)
     state2 = device_update(lm, np.array([[5500, 500, 500]]), max_range=12000)
@@ -110,3 +110,61 @@ def test_device_averaging_accumulates(tmp_path):
     ax = (5 + int(c[0])) % lm.size[0]
     assert int(np.asarray(state2.weight)[ax, c[1], c[2]]) == 2 * WEIGHT_RESOLUTION
     assert int(np.asarray(state2.value)[ax, c[1], c[2]]) == 0
+
+
+def test_device_matches_reference_exactly_at_long_range(tmp_path):
+    """Rays of 20-55 m: squared distances and direction * length products
+    overflow int32 and round in float32, yet the march must reproduce the
+    integer reference voxel for voxel (exact int32 helpers in ops/tsdf.py;
+    the old float32 stepping flipped knife-edge voxels)."""
+    size = (121, 121, 41)
+    rng = np.random.default_rng(3)
+    n = 48
+    r = rng.uniform(20000, 55000, n)
+    az = rng.uniform(-np.pi, np.pi, n)
+    pts = np.stack([r * np.cos(az), r * np.sin(az),
+                    rng.uniform(-15000, 15000, n)], axis=1).astype(np.int64)
+
+    lm_ref = LocalMap(size, GlobalMap(tmp_path / "ref", TAU, 0))
+    update_tsdf_reference(pts, np.zeros(3, np.int64), UP, lm_ref, TAU,
+                          MAX_WEIGHT, RESOLUTION, pos_mode="corner")
+    lm_dev = LocalMap(size, GlobalMap(tmp_path / "dev", TAU, 0))
+    max_steps, max_isteps = plan_raymarch(TAU, RESOLUTION, 60000)
+    out = tsdf_update(lm_dev.device_state(), jnp.asarray(pts, jnp.int32),
+                      jnp.ones((n,), bool), jnp.zeros(3, jnp.int32),
+                      jnp.asarray(UP, jnp.int32), size=lm_dev.size, tau=TAU,
+                      max_weight=MAX_WEIGHT, resolution=RESOLUTION,
+                      max_steps=max_steps, max_isteps=max_isteps,
+                      pos_mode="corner")
+    ref_w = np.asarray(lm_ref.state.weight)
+    assert int(np.count_nonzero(ref_w)) > 1000
+    np.testing.assert_array_equal(np.asarray(out.value),
+                                  np.asarray(lm_ref.state.value))
+    np.testing.assert_array_equal(np.asarray(out.weight), ref_w)
+
+
+def test_device_matches_reference_exactly_on_axis_rays(tmp_path):
+    """Rays along the negative axes and diagonals put direction * length /
+    distance exactly on integers, where a float32 ratio lands one below
+    and flips the voxel; the int32 helpers keep the march exact."""
+    tau, res = 600, 64
+    size = (161, 161, 41)
+    pts = []
+    for d in range(3000, 5100, 37):
+        pts += [[-d, 0, 0], [0, -d, 0], [-d, -d, 0], [d, -d, 100],
+                [-d, d // 3, -d // 7]]
+    pts = np.asarray(pts, np.int64)
+    lm_ref = LocalMap(size, GlobalMap(tmp_path / "ref", tau, 0))
+    update_tsdf_reference(pts, np.zeros(3, np.int64), UP, lm_ref, tau,
+                          MAX_WEIGHT, res)
+    lm_dev = LocalMap(size, GlobalMap(tmp_path / "dev", tau, 0))
+    max_steps, max_isteps = plan_raymarch(tau, res, 8000)
+    out = tsdf_update(lm_dev.device_state(), jnp.asarray(pts, jnp.int32),
+                      jnp.ones((len(pts),), bool), jnp.zeros(3, jnp.int32),
+                      jnp.asarray(UP, jnp.int32), size=lm_dev.size, tau=tau,
+                      max_weight=MAX_WEIGHT, resolution=res,
+                      max_steps=max_steps, max_isteps=max_isteps)
+    np.testing.assert_array_equal(np.asarray(out.value),
+                                  np.asarray(lm_ref.state.value))
+    np.testing.assert_array_equal(np.asarray(out.weight),
+                                  np.asarray(lm_ref.state.weight))

@@ -3,13 +3,13 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from warpsense_tpu.core.consts import MATRIX_RESOLUTION, WEIGHT_RESOLUTION
-from warpsense_tpu.io.synthetic import BoxWorld, render_scan
-from warpsense_tpu.map.local_map import LocalMapState, create_state
-from warpsense_tpu.ops.preprocess import preprocess_host
-from warpsense_tpu.ops.tsdf import plan_raymarch, tsdf_update
-from warpsense_tpu.ops.tsdf_projective import (build_beam_table,
-                                               tsdf_update_projective)
+from warpsense.core.consts import MATRIX_RESOLUTION, WEIGHT_RESOLUTION
+from warpsense.io.synthetic import BoxWorld, render_scan
+from warpsense.map.local_map import create_state
+from warpsense.ops.preprocess import preprocess_host
+from warpsense.ops.tsdf import plan_raymarch, tsdf_update
+from warpsense.ops.tsdf_projective import (atan2_poly, build_beam_table,
+                                           tsdf_update_projective)
 
 TAU = 600
 RES = 64
@@ -29,6 +29,15 @@ def _scan_points(seed=0, cap=16384):
 
 def _fresh():
     return create_state(SIZE, TAU, 0, xp=jnp)
+
+
+def test_atan2_poly_matches_numpy():
+    rng = np.random.default_rng(1)
+    y = jnp.asarray(rng.normal(0, 1e4, (64, 128)), jnp.float32)
+    x = jnp.asarray(rng.normal(0, 1e4, (64, 128)), jnp.float32)
+    got = np.asarray(atan2_poly(y, x))
+    want = np.arctan2(np.asarray(y), np.asarray(x))
+    assert np.max(np.abs(got - want)) < 1e-5
 
 
 def test_beam_table_nearest_return():
@@ -141,7 +150,7 @@ def test_fusion_config_guards():
     the f32-exact merge division or the banded-atan ring binning raise at
     the fusion entry instead of silently corrupting the map."""
     import pytest
-    from warpsense_tpu.ops.tsdf_projective import check_fusion_config
+    from warpsense.ops.tsdf_projective import check_fusion_config
 
     check_fusion_config(600, 32 * WEIGHT_RESOLUTION, 45.0)   # bench config
     with pytest.raises(ValueError, match="2\\^24"):
@@ -183,7 +192,7 @@ def test_level_grid_tilt_envelope():
     written-voxel deficit stays in the low single digits; beyond it the
     deficit grows — which is why fusion dispatch falls back (see
     fusion_backend.level_tilt_budget_deg)."""
-    from warpsense_tpu.pipeline.fusion_backend import level_tilt_budget_deg
+    from warpsense.pipeline.fusion_backend import level_tilt_budget_deg
 
     budget = level_tilt_budget_deg(VFOV)        # 2 deg (measured)
     deficits = {}
@@ -210,10 +219,10 @@ def test_level_grid_tilt_envelope():
 def test_fusion_dispatch_attitude_fallback(tmp_path):
     """fuse_cloud automatically switches from the level grid to the
     attitude-aware grid beyond the tilt budget (VERDICT r3 #6)."""
-    from warpsense_tpu.core.config import Params
-    from warpsense_tpu.pipeline.fusion_backend import (fuse_cloud,
-                                                       grid_rotation_for,
-                                                       sensor_tilt_deg)
+    from warpsense.core.config import Params
+    from warpsense.pipeline.fusion_backend import (fuse_cloud,
+                                                   grid_rotation_for,
+                                                   sensor_tilt_deg)
 
     def pitched_pose_mm(deg):
         t = np.radians(deg)
@@ -245,3 +254,126 @@ def test_fusion_dispatch_attitude_fallback(tmp_path):
         channels=CHANNELS, columns=COLUMNS, vfov_deg=VFOV)
     np.testing.assert_array_equal(np.asarray(out.value),
                                   np.asarray(expect.value))
+
+
+def _level_params():
+    from warpsense.core.config import Params
+    return Params.from_dict({
+        "map": {"max_distance": TAU / 1000.0, "resolution": RES,
+                "max_weight": 32},
+        "lidar": {"channels": CHANNELS, "hresolution": COLUMNS},
+    })
+
+
+def test_level_sweep_equals_attitude_sweep_at_identity():
+    """At R = I the level grid IS the sensor attitude: fuse_cloud's
+    production sweep ("auto" = "projective-level") and the attitude sweep
+    ("projective") must agree bit for bit, over two chained fusions."""
+    from warpsense.pipeline.fusion_backend import fuse_cloud
+
+    pts, mask = _scan_points(seed=3)
+    params = _level_params()
+    pose = np.eye(4, dtype=np.float32)
+    pose2 = pose.copy()
+    pose2[:3, 3] = [2 * RES, -RES, RES]
+    out = {}
+    for fusion in ("auto", "projective"):
+        st = fuse_cloud(_fresh(), pts, mask, pose, params=params, size=SIZE,
+                        fusion=fusion)
+        out[fusion] = fuse_cloud(st, pts, mask, pose2, params=params,
+                                 size=SIZE, fusion=fusion)
+    np.testing.assert_array_equal(np.asarray(out["auto"].value),
+                                  np.asarray(out["projective"].value))
+    np.testing.assert_array_equal(np.asarray(out["auto"].weight),
+                                  np.asarray(out["projective"].weight))
+    assert int(np.count_nonzero(np.asarray(out["auto"].weight))) > 10000
+
+
+def test_level_sweep_empty_scan_is_identity():
+    """A scan with no valid return leaves the map untouched."""
+    from warpsense.pipeline.fusion_backend import fuse_cloud
+
+    pts, mask = _scan_points(seed=0)
+    warm = fuse_cloud(_fresh(), pts, mask, np.eye(4, dtype=np.float32),
+                      params=_level_params(), size=SIZE, fusion="auto")
+    before = (np.asarray(warm.value).copy(), np.asarray(warm.weight).copy())
+    after = fuse_cloud(warm, pts, jnp.zeros_like(mask),
+                       np.eye(4, dtype=np.float32), params=_level_params(),
+                       size=SIZE, fusion="auto")
+    np.testing.assert_array_equal(np.asarray(after.value), before[0])
+    np.testing.assert_array_equal(np.asarray(after.weight), before[1])
+
+
+def test_level_sweep_tall_window():
+    """The level sweep takes windows taller than 256 voxels (z = 300): it
+    fuses the same cells as a 101-voxel-tall window that already holds
+    the whole scene (BoxWorld spans z in [-2, 3] m), plus only the tau
+    band behind the ceiling that the short window cuts off."""
+    from warpsense.pipeline.fusion_backend import fuse_cloud
+
+    tall, short = (251, 251, 300), (251, 251, 101)
+    pts, mask = _scan_points(seed=4)
+    params = _level_params()
+    out = {}
+    for size in (tall, short):
+        out[size] = fuse_cloud(create_state(size, TAU, 0, xp=jnp,
+                                            force_odd=False),
+                               pts, mask, np.eye(4, dtype=np.float32),
+                               params=params, size=size, fusion="auto")
+    tv, tw = np.asarray(out[tall].value), np.asarray(out[tall].weight)
+    sv, sw = np.asarray(out[short].value), np.asarray(out[short].weight)
+    assert tw.shape == tall
+    # both windows are centered on the origin: global z = index - s // 2
+    cz = tall[2] // 2 - short[2] // 2
+    np.testing.assert_array_equal(tw[:, :, cz:cz + short[2]], sw)
+    np.testing.assert_array_equal(tv[:, :, cz:cz + short[2]], sv)
+    # beyond the short window only the tau band behind the ceiling fuses
+    band = -(-TAU // RES)
+    assert tw[:, :, cz + short[2]:].any()
+    assert not tw[:, :, :cz - band].any()
+    assert not tw[:, :, cz + short[2] + band:].any()
+    zs = np.nonzero(sw.any(axis=(0, 1)))[0]
+    # floor at -2 m and ceiling at +3 m: 78 voxels apart at 64 mm
+    assert zs.max() - zs.min() > 70, (zs.min(), zs.max())
+
+
+def test_projective_reference_matches_level_sweep():
+    """The float64 host twin of the per-voxel rule (tsdf_reference.
+    projective_reference) reproduces the XLA level sweep on every voxel
+    whose decisions are clear of float32 rounding — the oracle the
+    on-card parity check uses to explain any backend difference."""
+    from warpsense.map.local_map import in_bounds
+    from warpsense.ops.tsdf_reference import projective_reference
+
+    pts, mask = _scan_points(seed=6)
+    eye = jnp.eye(3, dtype=jnp.float32)
+    out = tsdf_update_projective(
+        _fresh(), pts, mask, jnp.zeros(3, jnp.int32), eye, size=SIZE,
+        tau=TAU, max_weight=32 * WEIGHT_RESOLUTION, resolution=RES,
+        channels=CHANNELS, columns=COLUMNS, vfov_deg=VFOV)
+    scanner_mm = np.full(3, RES // 2)
+    keep = mask & in_bounds(jnp.floor_divide(pts, RES),
+                            jnp.zeros(3, jnp.int32), jnp.asarray(SIZE),
+                            -(TAU // RES // 2))
+    rng_tab, endpoint = build_beam_table(
+        pts, keep, jnp.asarray(scanner_mm, jnp.int32), eye,
+        channels=CHANNELS, columns=COLUMNS, vfov_deg=VFOV)
+    # fresh window: pos 0, offset s // 2 -> global = index - s // 2
+    idx = np.indices(SIZE).reshape(3, -1).T
+    v, w, mg = projective_reference(
+        idx - np.asarray(SIZE) // 2, scanner_mm, np.asarray(rng_tab),
+        np.asarray(endpoint), tau=TAU, resolution=RES, channels=CHANNELS,
+        columns=COLUMNS, vfov_deg=VFOV)
+    with np.errstate(invalid="ignore"):
+        clear = ((mg["bins"].min(axis=1) > 1e-3)
+                 & (np.nan_to_num(mg["mm"], nan=np.inf).min(axis=1) > 0.05)
+                 & (mg["weight"] > 1e-3))
+    # the scanner's own ring boundary plane (elevation 0 falls exactly
+    # between two rings) is the bulk of the knife edges
+    assert clear.mean() > 0.95
+    got_v = np.asarray(out.value).reshape(-1)
+    got_w = np.asarray(out.weight).reshape(-1)
+    np.testing.assert_array_equal(got_w[clear], w[clear])
+    np.testing.assert_array_equal(got_v[clear],
+                                  np.where(w != 0, v, TAU)[clear])
+    assert int(np.count_nonzero(w[clear])) > 10000

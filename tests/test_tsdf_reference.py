@@ -1,14 +1,14 @@
 """Golden-value TSDF line test — port of the reference test/map.cpp
 `tsdf_write`/`tsdf_read` (single point at (5.5, 0.5, 0.5) m, exact
-value/weight asserted per cell along the ray) plus HDF5 round trip."""
+value/weight asserted per cell along the ray) plus a map-store round trip."""
 import numpy as np
 import pytest
 
-from warpsense_tpu.core.consts import MATRIX_RESOLUTION, WEIGHT_RESOLUTION
-from warpsense_tpu.map.global_map import GlobalMap
-from warpsense_tpu.map.local_map import LocalMap
-from warpsense_tpu.ops.tsdf_reference import (calc_weight,
-                                              update_tsdf_reference)
+from warpsense.core.consts import MATRIX_RESOLUTION, WEIGHT_RESOLUTION
+from warpsense.map.global_map import GlobalMap
+from warpsense.map.local_map import LocalMap
+from warpsense.ops.tsdf_reference import (calc_weight,
+                                          update_tsdf_reference)
 
 TAU = 3000
 RESOLUTION = 1000
@@ -26,7 +26,7 @@ EXPECTED = {
 }
 
 
-def run_update(tmp_path, name="golden.h5"):
+def run_update(tmp_path, name="golden"):
     gm = GlobalMap(tmp_path / name, TAU, 0)
     lm = LocalMap(MAP_SIZE, gm)
     points = np.array([[5500, 500, 500]], dtype=np.int64)
@@ -49,34 +49,32 @@ def test_tsdf_write_golden(tmp_path):
 
 
 def test_tsdf_read_roundtrip(tmp_path):
-    """Write map to HDF5, reread raw chunks, verify the same golden line
+    """Write the map out, reread raw chunks, verify the same golden line
     (parity with test/map.cpp `tsdf_read`)."""
-    import h5py
-    from warpsense_tpu.map.tsdf_entry import unpack
-    from warpsense_tpu.map.global_map import CHUNK_SIZE
+    from warpsense.map.tsdf_entry import unpack
+    from warpsense.map.global_map import CHUNK_SIZE
 
-    gm, lm = run_update(tmp_path, "roundtrip.h5")
+    gm, lm = run_update(tmp_path, "roundtrip")
     lm.write_back()
     gm.close()
 
     found = {}
-    with h5py.File(tmp_path / "roundtrip.h5") as f:
-        for tag, d in f["map"].items():
-            cx, cy, cz = (int(t) for t in tag.split("_"))
-            v, w = unpack(np.asarray(d[...]))
-            v = v.reshape(CHUNK_SIZE, CHUNK_SIZE, CHUNK_SIZE)
-            w = w.reshape(CHUNK_SIZE, CHUNK_SIZE, CHUNK_SIZE)
-            ii, jj, kk = np.nonzero(w > 0)
-            for i, j, k in zip(ii, jj, kk):
-                found[(cx * CHUNK_SIZE + i, cy * CHUNK_SIZE + j,
-                       cz * CHUNK_SIZE + k)] = (int(v[i, j, k]), int(w[i, j, k]))
+    for tag in gm.chunk_tags():
+        cx, cy, cz = (int(t) for t in tag.split("_"))
+        v, w = unpack(gm.read_chunk(tag))
+        v = v.reshape(CHUNK_SIZE, CHUNK_SIZE, CHUNK_SIZE)
+        w = w.reshape(CHUNK_SIZE, CHUNK_SIZE, CHUNK_SIZE)
+        ii, jj, kk = np.nonzero(w > 0)
+        for i, j, k in zip(ii, jj, kk):
+            found[(cx * CHUNK_SIZE + i, cy * CHUNK_SIZE + j,
+                   cz * CHUNK_SIZE + k)] = (int(v[i, j, k]), int(w[i, j, k]))
     for cell, value in EXPECTED.items():
         assert cell in found
         assert found[cell] == (value, calc_weight(value, TAU))
 
 
 def test_tsdf_weight_never_increases_past_max(tmp_path):
-    gm = GlobalMap(tmp_path / "w.h5", TAU, 0)
+    gm = GlobalMap(tmp_path / "w", TAU, 0)
     lm = LocalMap(MAP_SIZE, gm)
     points = np.array([[5500, 500, 500]], dtype=np.int64)
     pos = np.zeros(3, dtype=np.int64)
